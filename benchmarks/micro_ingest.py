@@ -6,15 +6,14 @@ C decode fed 1.7-3.5M reads/s. The C bucketer (native/packer.c
 seekmer_bucketer_*) moves that copy into GIL-released C; this micro
 measures the pipeline before/after on the same files, same process.
 
-Arms (all over the same generated .gz dataset in /tmp/seekmer_ingest):
+Arms (all over the same generated .gz dataset in .bench_cache/ingest):
   raw           C decode only, chunks discarded (the ceiling)
   numpy-bucket  decode -> io/fastq._BucketAccumulator (the old pipeline)
   c-bucket      decode -> native Bucketer (the new pipeline)
   ckpt          CheckpointableBatchSource (serial, cursor-bearing path)
 paired variants use two mate file sets through batch_read_pairs_native.
 
-CPU-only — run while the TPU is idle (2-CPU host; concurrent load skews
-everything, CLAUDE.md).
+CPU-only; concurrent load on the host skews everything, so run it alone.
 
 Usage: python benchmarks/micro_ingest.py [--reads N] [--files F] [--paired]
 """
@@ -34,7 +33,8 @@ import numpy as np
 
 log = lambda *a: print(*a, file=sys.stderr, flush=True)
 
-CACHE = "/tmp/seekmer_ingest"
+CACHE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".bench_cache", "ingest")
 
 
 def dataset(n_reads: int, n_files: int, read_len: int, paired: bool,

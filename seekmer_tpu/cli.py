@@ -85,12 +85,6 @@ def _add_infer(sub):
                    help="probe lanes in N sequential chunks (bounds device "
                         "memory transients for very large batches; "
                         "0 = auto)")
-    p.add_argument("--pack-backend", choices=("xla", "pallas"),
-                   default="xla", help="canonical k-mer packing kernel")
-    p.add_argument("--probe-backend", choices=("xla", "pallas"),
-                   default="xla", help="bucket match/select kernel")
-    p.add_argument("--sig-backend", choices=("xla", "pallas"),
-                   default="xla", help="EC signature-extraction kernel")
     p.add_argument("--no-h2d-pack", action="store_true",
                    help="disable 2-bit host->device code packing "
                         "(MapConfig.h2d_pack_2bit; on by default for the "
@@ -128,7 +122,7 @@ def _add_fuse(sub):
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="seekmer_tpu",
-        description="TPU-native RNA-seq quantification "
+        description="RNA-seq quantification on an accelerator "
         "(k-mer pseudoalignment + EM)",
     )
     from . import __version__
@@ -172,7 +166,9 @@ def cmd_infer(args) -> int:
 
         init_distributed()
     start_time = time.strftime("%Y-%m-%dT%H:%M:%S")
+    t0 = time.perf_counter()
     index = KMerIndex.load(args.index)
+    index_load_s = time.perf_counter() - t0
     cfg = PipelineConfig().replace(
         map=MapConfig(
             batch_size=args.batch_size,
@@ -184,9 +180,6 @@ def cmd_infer(args) -> int:
             sample_fallback_frac=args.sample_fallback,
             probe_chunks=args.probe_chunks,
             io_workers=args.io_workers,
-            pack_backend=args.pack_backend,
-            probe_backend=args.probe_backend,
-            sig_backend=args.sig_backend,
             h2d_pack_2bit=not args.no_h2d_pack,
         ),
         em=EMConfig(
@@ -259,7 +252,7 @@ def cmd_infer(args) -> int:
             # documented approximation (0 = dense/exact)
             "probe_sample": args.probe_sample,
             "start_time": start_time,
-            "timings": result.timings,
+            "timings": {"index_load_s": index_load_s, **result.timings},
             "index": args.index,
             "n_targets": int(index.num_transcripts),
         },

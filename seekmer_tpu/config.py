@@ -1,7 +1,7 @@
 """Frozen configuration dataclasses for the seekmer-tpu pipeline.
 
 These configs are the *spec*: the numpy float64 oracle (tests/oracle) and the
-TPU device path share every constant defined here, so numerical parity between
+device path share every constant defined here, so numerical parity between
 the two is well-defined even while the upstream reference source is
 unavailable (see SURVEY.md section 0 — /root/reference was empty at survey
 time; reference parity will be re-validated if the mount is populated).
@@ -26,11 +26,9 @@ class IndexConfig:
     k: int = 25
     # Target load factor (keys / total slots) of the bucketized main table.
     load_factor: float = 0.5
-    # Slots per bucket. One device gather fetches a whole bucket; measured
-    # TPU gather cost is per-LANE, not per-byte (one 512B HBM transaction
-    # either way), so big buckets are free AND make full buckets —the only
-    # reason a lookup ever needs the stash— vanishingly rare
-    # (P[Poisson(16) >= 32] ~ 2e-4 at load 0.5).
+    # Slots per bucket. One device gather fetches a whole bucket; big
+    # buckets make full buckets —the only reason a lookup ever needs the
+    # stash— vanishingly rare (P[Poisson(16) >= 32] ~ 2e-4 at load 0.5).
     bucket_size: int = 32
     # Stash sized at this load; grown 2x until no stash bucket overflows.
     stash_load: float = 0.25
@@ -56,8 +54,8 @@ class MapConfig:
     """Configuration for pseudoalignment (reference: seekmer mapper.py).
 
     The reference's Cython inner loop probes k-mers with a skipping heuristic;
-    the TPU design probes every valid position in parallel (SURVEY.md 7.4) —
-    semantics below define the TPU/oracle-shared behavior.
+    the device design probes every valid position in parallel (SURVEY.md
+    7.4) — semantics below define the device/oracle-shared behavior.
     """
 
     # Reads per device batch (per length bucket).
@@ -79,9 +77,8 @@ class MapConfig:
     # two distinct signatures) is counted into MapResult.collisions. One
     # extra (B, C)-row gather per audited batch (map/signature.accumulate).
     collision_audit: bool = True
-    # Audit every Nth batch (1 = every batch). Auditing costs ~1.5 ms/batch
-    # (~5% of the config-1 step, measured 2026-08-21), and a collision
-    # persists in the table, so any collider whose signature recurs across
+    # Audit every Nth batch (1 = every batch). Auditing costs one extra
+    # row gather per audited batch, and a collision persists in the table, so any collider whose signature recurs across
     # batches is still caught by sampling; only colliders appearing
     # EXCLUSIVELY in unaudited batches go unreported (the counter is a
     # diagnostic for an ~U^2/2^64-probability event, not an exact tally).
@@ -132,12 +129,9 @@ class MapConfig:
     # Fast-mode phase-2 cap as a fraction of the batch: each dense
     # fallback round re-probes at most this many reads; residual reads
     # drain through further while_loop rounds (exact coverage — the cap
-    # only schedules). The cost landscape is non-monotonic (measured at
-    # GENCODE paired, observed fallback 0.315: cap 0.125 -> 73 ms/batch
-    # over 3 rounds, 0.25 -> 89, **0.35 -> 56**, 0.5 -> 84): the
-    # minimum is the SMALLEST cap that fits the workload's fallback
-    # fraction in ONE round — an undersized cap pays extra rounds, an
-    # oversized one wastes its filler lanes' gathers.
+    # only schedules). The cheapest cap is the SMALLEST one that fits the
+    # workload's fallback fraction in ONE round — an undersized cap pays
+    # extra rounds, an oversized one wastes its filler lanes' gathers.
     # 0 = AUTO (default): the single-chip mapper measures the first fast
     # batch's fallback fraction with a one-off classify-stage program
     # and picks the just-fitting cap from a fixed grid (map/driver.py
@@ -153,22 +147,9 @@ class MapConfig:
     probe_chunks: int = 0
     # Ship code rows to the device 2-bit packed (0.375 bytes/base: 2-bit
     # codes + invalid bitmask, unpacked exactly on-device) — 2.67x less
-    # H2D on the path end-to-end runs bottleneck on
-    # (docs/PERFORMANCE.md "End-to-end CLI run"). Single-chip mapper path;
-    # the sharded mappers feed unpacked rows.
+    # H2D. Single-chip mapper path; the sharded mappers feed unpacked rows.
     h2d_pack_2bit: bool = True
-    # Canonical window packing: "xla" (jnp, fused by XLA) or "pallas"
-    # (ops/pack_pallas.py kernel).
-    pack_backend: str = "xla"
-    # Bucket match/select: "xla" (compare fused into the gather by XLA —
-    # measured faster, default) or "pallas" (ops/probe_pallas.py explicit
-    # fused kernel; requires the gathered rows to round-trip HBM).
-    probe_backend: str = "xla"
-    # Signature extraction (per-read sorted distinct EC ids — the EC
-    # intersection step): "xla" (two jnp row-sorts) or "pallas"
-    # (ops/sig_pallas.py fused bitonic kernel).
-    sig_backend: str = "xla"
-    # Concurrent FASTQ decode threads (the TPU-era analog of the
+    # Concurrent FASTQ decode threads (the device-era analog of the
     # reference's --jobs reader pool, SURVEY.md 2.1 C6): 0 = auto
     # (min(4, n_files); single-end only), 1 = serial deterministic order
     # (required for checkpoint resume; forced automatically when
@@ -207,7 +188,7 @@ class EMConfig:
     count_floor: float = 1e-8
     min_iters: int = 10
     # A realistic 1M-pair isoform dataset needed ~16k plain-EM iterations
-    # (21 s on-device) to reach rel_tol=1e-4 — the previous default cap of
+    # to reach rel_tol=1e-4 — the previous default cap of
     # 1000 silently truncated EM at ~6% of convergence. The quantifier
     # warns when a run exits at the cap. (The reference's exact cap is an
     # open parameter, SURVEY.md 3.4.)
@@ -227,24 +208,17 @@ class EMConfig:
     # Fixed-point acceleration: "none" = plain EM; "squarem" = SQUAREM S3
     # cycles (3 EM steps each: secant extrapolation + stabilizing step) —
     # same fixed points, typically 3-10x fewer EM steps to converge.
-    # Applies to the CSR paths — single-run, batched bootstrap AND the
-    # collective (psum) EM (parallel/collective_em.py; the psum'd iterate
-    # is still a fixed-point map and alpha is replicated, so all chips
-    # extrapolate in lockstep). Iteration counts stay in EM-step units.
-    # The Pallas dense kernel runs plain EM regardless.
+    # Applies to every path — single-run, batched bootstrap AND the
+    # collective (psum) EM (parallel/collective_em.py; the psum'd
+    # iterate is still a fixed-point map and alpha is replicated, so all
+    # devices extrapolate in lockstep). Iteration counts stay in EM-step
+    # units.
     accel: str = "none"  # "none" | "squarem"
-    # EM backend. "auto" = the flat-CSR segment-sum while_loop: with the
-    # convergence check hoisted to counted blocks (check_every) it measures
-    # ~100x the dense Pallas kernel at every scale, because nnz << E*T
-    # (docs/PERFORMANCE.md). "pallas" forces the fused dense fixed-point
-    # kernel (ops/em_pallas.py, the explicit-kernel form; VMEM-sized
-    # systems only); "csr" forces the sparse path explicitly.
-    backend: str = "auto"  # "auto" | "csr" | "pallas"
 
 
 @dataclasses.dataclass(frozen=True)
 class ShardConfig:
-    """Mesh / parallelism configuration (TPU-only; no reference counterpart —
+    """Mesh / parallelism configuration (no reference counterpart —
     the reference's only parallelism is a single-host worker pool,
     SURVEY.md section 2.2)."""
 

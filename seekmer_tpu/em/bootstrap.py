@@ -2,11 +2,14 @@
 EM re-run per replicate (reference: infer.py's bootstrap loop, SURVEY.md 2.1
 C8 / call stack 3.5).
 
-TPU-first: the reference loops replicates serially; here all B replicates
-run as ONE batched while_loop (`vmap` of the EM step over the replicate
-axis, SURVEY.md 2.2 P4) and the replicate axis can additionally be sharded
-across chips (parallel/ wiring). The fixed point iterates until every
-replicate meets the shared convergence rule.
+The reference loops replicates serially; here all B replicates run as ONE
+batched while_loop over a replicate-major (T, B) iterate (SURVEY.md 2.2
+P4), and the replicate axis can additionally be sharded across devices
+(parallel/ wiring). The fixed point iterates until every replicate meets
+the shared convergence rule. The batched step is the flat CSR (gathers +
+segment sums over the nnz membership entries); a dense form (two matrix
+products against the (E, T) membership matrix) measured slower on the
+H100 at every size tried (PERF.md), so it is not kept.
 """
 
 from __future__ import annotations
@@ -21,11 +24,11 @@ from .em import (
     ECTable,
     _block_body,
     _chunked_fixed_point,
-    _use_chunked,
     accel_schedule,
     effective_lengths,
     run_blocked_fixed_point,
     squarem_cycle,
+    use_chunked,
 )
 
 
@@ -57,15 +60,9 @@ def batched_em(cmat, dtype, ec_ids, txp_ids, lengths,
 
     The replicate axis lives in the ROW (minor) dimension of every gather
     and segment-sum — (nnz, B)-shaped operands indexed by nnz lanes — so
-    each EM iteration costs the same LANE count as a single-run iteration.
-    Gather cost on this hardware is per-lane, nearly independent of row
-    width (docs/PERFORMANCE.md), so B replicates ride along almost free;
-    the previous formulation FLATTENED replicates into the segment ids
-    (correct, same primitive as the single-run path, but B*nnz lanes —
-    ~B x the per-iteration cost at GENCODE scale). A still-earlier VMAPPED
-    segment_sum formulation miscompiled on the TPU backend (alpha collapsed
-    to zero; docs/PERFORMANCE.md 'Hardware-only bugs') — this one uses
-    plain 2-D segment_sum, no vmap, and is oracle-validated per replicate.
+    each EM iteration gathers nnz rows of B contiguous values instead of
+    B*nnz scattered ones. Plain 2-D segment_sum, no vmap; oracle-validated
+    per replicate.
     """
     eff = effective_lengths(lengths, cfg, dtype)
     B, T = cmat.shape[0], num_transcripts
@@ -112,8 +109,7 @@ def _batched_em_chunked(cmat, ec_ids, txp_ids, lengths,
                         num_ecs: int, num_transcripts: int, cfg: EMConfig,
                         alpha_init=None, it_init: int = 0, on_sync=None):
     """Chunked host-driven variant of batched_em: same blocked schedule,
-    bounded per-block XLA executions (long single executions crash this
-    platform's TPU worker — em._MAX_EXEC_S).
+    one XLA execution per few blocks, host syncs in between.
 
     ``alpha_init`` (replicate-major (T, B)) / ``it_init`` warm-start the
     batched fixed point from a bootstrap-stage snapshot; ``on_sync
@@ -163,58 +159,29 @@ def run_bootstrap(ec: ECTable, lengths, cfg: EMConfig,
                   chunked: bool | None = None):
     """Returns est_counts per replicate: float[B, T].
 
-    Uses the fused Pallas fixed-point kernel when the dense membership and
-    replicate batch fit VMEM (the replicate axis turns the EM contractions
-    into genuine MXU matmuls); falls back to the vmapped CSR loop.
-
     ``alpha_init`` ((T, B) replicate-major) / ``it_init`` / ``on_sync``
-    wire bootstrap-stage snapshots on the CHUNKED execution path (the
-    long runs); resampling is seeded by cfg.bootstrap_seed, so a resumed
-    run regenerates the identical cmat. ``chunked`` overrides the
-    execution-mode policy (tests).
+    wire bootstrap-stage snapshots on the CHUNKED execution path, which
+    they select (em.use_chunked); resampling is seeded by
+    cfg.bootstrap_seed, so a resumed run regenerates the identical cmat.
+    ``chunked`` forces a mode.
     """
-    from .em import _pallas_interpret, _use_pallas, dense_membership
-
-    B, T = cfg.bootstrap_samples, ec.num_transcripts
-    # ONE shared jitted resample regardless of EM backend, so backends are
-    # numerically comparable (and the sequential multinomial scan compiles
-    # once).
+    B = cfg.bootstrap_samples
+    # ONE shared jitted resample for both execution modes, so they are
+    # numerically comparable (and the sequential multinomial scan
+    # compiles once)
     counts = ec.counts.astype(jnp.float32)
     key = jax.random.PRNGKey(cfg.bootstrap_seed)
     cmat = _resample_jit(key, counts, B)  # [B, E]
-    # The Pallas single-execution kernel cannot honor RESUME arguments
-    # (no sync points, internal budget restarts at 0, ignores alpha_init)
-    # and must not shadow an explicit chunked=True — route those runs
-    # through the CSR paths. Fresh runs with on_sync set still take it
-    # (short single-execution runs need no mid-run snapshot, and gating
-    # on on_sync — which only process 0 receives — would make processes
-    # run DIFFERENT backends on multi-host runs; round-3 review
-    # findings).
-    if (chunked is not True and alpha_init is None and it_init == 0
-            and _use_pallas(ec, cfg, replicates=B)):
-        from ..ops.em_pallas import em_fixed_point
-
-        eff = effective_lengths(jnp.asarray(lengths), cfg, jnp.float32)
-        inv_eff = (1.0 / eff)[None, :]
-        alpha0 = jnp.broadcast_to(
-            cmat.sum(axis=1, keepdims=True) / T, (B, T)).astype(jnp.float32)
-        alpha, _ = em_fixed_point(
-            dense_membership(ec), cmat, inv_eff, alpha0, cfg, T,
-            interpret=_pallas_interpret(),
-        )
-        return alpha
-    if chunked is None:
-        chunked = _use_chunked(int(ec.ec_ids.shape[0]), cfg, replicates=B)
-    if chunked:
+    if use_chunked(chunked, snapshots=on_sync is not None,
+                   resume=alpha_init is not None or it_init > 0):
         alpha, _ = _batched_em_chunked(
             cmat, ec.ec_ids, ec.txp_ids, lengths,
             ec.num_ecs, ec.num_transcripts, cfg,
             alpha_init=alpha_init, it_init=it_init, on_sync=on_sync)
         return alpha
-    alpha, _ = _batched_em_jit(
-        cmat, ec.ec_ids, ec.txp_ids, jnp.asarray(lengths),
-        ec.num_ecs, ec.num_transcripts, cfg,
-    )
+    alpha, _ = _batched_em_jit(cmat, ec.ec_ids, ec.txp_ids,
+                               jnp.asarray(lengths), ec.num_ecs,
+                               ec.num_transcripts, cfg)
     return alpha
 
 

@@ -2,7 +2,7 @@
 SURVEY.md 2.1 C7 and call stack 3.4; exact upstream constants are open
 parameters pinned in EMConfig until the reference mount is readable).
 
-TPU-first formulation: the EC membership structure is a flat CSR —
+Device formulation: the EC membership structure is a flat CSR —
 ``txp_ids[nnz]`` / ``ec_ids[nnz]`` (sorted by EC) — so one EM iteration is
 two segment-sums and elementwise work, all static shapes, wrapped in a
 ``jax.lax.while_loop`` fixed point:
@@ -168,15 +168,13 @@ def run_blocked_fixed_point(em_iter, alpha0, cfg: EMConfig,
     the max_iters budget counts TOTAL iterations across restarts.
 
     Data-dependent control flow costs a device<->runtime sync per
-    evaluation on this backend (measured ~30-130us, vs ~0.3us/iteration
-    for a counted loop), so each while_loop round runs check_every-1 raw
-    counted EM steps plus one monitored step, and tests convergence
-    between the block's last two iterates. Iteration counts are therefore
-    multiples of check_every and max_iters is rounded up to a whole block
-    — the numpy oracle (tests/oracle) implements the identical rule, so
-    device/oracle parity is exact. Shared by the CSR EM, the batched
-    bootstrap EM, and the collective (psum) EM; the Pallas kernels mirror
-    the same schedule in-kernel.
+    evaluation, so each while_loop round runs check_every-1 raw counted EM
+    steps plus one monitored step, and tests convergence between the
+    block's last two iterates. Iteration counts are therefore multiples of
+    check_every and max_iters is rounded up to a whole block — the numpy
+    oracle (tests/oracle) implements the identical rule, so device/oracle
+    parity is exact. Shared by the CSR EM, the batched bootstrap EM, and
+    the collective (psum) EM.
     """
     def cond(state):
         it, converged, _ = state
@@ -224,21 +222,18 @@ def _em_block_jit(counts, ec_ids, txp_ids, eff, it, conv, alpha,
     return _block_body(em_iter, cfg)((it, conv, alpha))
 
 
-# Rough per-lane-per-iteration cost used only to DECIDE device-loop vs
-# chunked execution (measured ~11 ms / 262k-nnz iteration on v5e).
-_EST_LANE_S = 4e-8
-# Single XLA executions lasting ~90s reproducibly CRASH this platform's
-# TPU worker ("TPU worker process crashed or restarted"; <= ~23s is safe,
-# measured 2026-08-19). Convergence-checked while_loops are unbounded, so
-# any run that could exceed this budget is chunked into per-block
-# executions driven from the host.
-_MAX_EXEC_S = 15.0
-
-
-def _use_chunked(nnz: int, cfg: EMConfig, replicates: int = 1) -> bool:
-    if jax.default_backend() != "tpu":
-        return False
-    return nnz * replicates * cfg.max_iters * _EST_LANE_S > _MAX_EXEC_S
+def use_chunked(chunked: bool | None, snapshots: bool,
+                resume: bool = False) -> bool:
+    """Execution-mode policy of every EM fixed point (single-run,
+    bootstrap, collective, sharded bootstrap): one while_loop execution,
+    unless the caller wants mid-run snapshots (checkpointed runs — the
+    chunked driver's host syncs are the snapshot points) or resumes a
+    form that only the chunked driver can warm-start. ``chunked`` forces
+    a mode. Both modes give identical results: post-convergence blocks
+    are the identity (_block_body)."""
+    if chunked is not None:
+        return chunked
+    return snapshots or resume
 
 
 def _chunked_fixed_point(block_fn, state, cfg_eff: EMConfig,
@@ -335,81 +330,21 @@ def _run_em_jit(counts, ec_ids, txp_ids, lengths, num_ecs, num_transcripts,
     return alpha, it
 
 
-def dense_membership(ec: ECTable) -> jnp.ndarray:
-    """Dense EC-membership matrix float32[E, T] from the flat CSR."""
-    M = jnp.zeros((ec.num_ecs, ec.num_transcripts), jnp.float32)
-    return M.at[ec.ec_ids, ec.txp_ids].set(1.0)
-
-
-def _pallas_interpret() -> bool:
-    import jax
-
-    return jax.default_backend() != "tpu"
-
-
-def _use_pallas(ec: ECTable, cfg: EMConfig, replicates: int = 1) -> bool:
-    from ..ops.em_pallas import fits_pallas
-
-    if cfg.use_x64 or cfg.backend == "csr":
-        return False
-    if cfg.backend == "auto" and replicates == 1:
-        # single-run auto = CSR: its per-iteration arrays are tiny
-        # (alpha/w/r over nnz), so the while_loop runs VMEM-resident —
-        # measured ~65x the dense kernel at config-1 scale
-        return False
-    # batched auto = the dense kernel when it fits: the replicate axis
-    # turns the contractions into real MXU matmuls, ~100x the flat-batched
-    # CSR whose R*nnz gathers are HBM-bound (docs/PERFORMANCE.md)
-    ok = fits_pallas(ec.num_ecs, ec.num_transcripts, replicates)
-    if cfg.backend == "pallas" and not ok:
-        raise ValueError("system too large for the Pallas EM kernel")
-    return ok
-
-
 def run_em(
     ec: ECTable, lengths, cfg: EMConfig = EMConfig(), alpha_init=None,
     it_init: int = 0, on_sync=None, chunked: bool | None = None,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """EM to convergence. Returns (alpha float[T], iterations int32).
+    """EM to convergence on the flat CSR. Returns (alpha float[T],
+    iterations int32).
 
     ``alpha_init``/``it_init`` warm-start the fixed point (checkpoint
     resume, SURVEY.md 5.3: "EM restarts from last alpha snapshot"; the
     max_iters budget counts total iterations across restarts).
     ``on_sync(alpha_np, it)`` fires at host sync points of the CHUNKED
-    execution path — the snapshot hook; the single-execution paths run
-    the whole fixed point in one XLA program, so they cannot snapshot
-    mid-run (they are the short, crash-safe runs). ``chunked`` overrides
-    the automatic execution-mode policy (tests). Backend per
-    EMConfig.backend: auto = the flat-CSR while_loop (VMEM-resident for
-    single runs — see _use_pallas for the measured policy).
-
-    The Pallas single-execution path is only taken when it can honor the
-    full contract: not when chunked=True forces the chunked driver, and
-    not when RESUMING (it_init) — its internal iteration budget restarts
-    from 0, which silently broke the documented total-budget semantics
-    (round-3 review finding). A fresh run with on_sync set still takes
-    it: Pallas-eligible runs are the short single-execution ones, whose
-    mid-run snapshots were never needed (a crash simply re-runs the
-    stage; the post-stage pin is the quantifier's own call).
+    execution path — the snapshot hook; giving it selects that path
+    (use_chunked). ``chunked`` forces a mode.
     """
-    if chunked is not True and it_init == 0 and _use_pallas(ec, cfg):
-        from ..ops.em_pallas import em_fixed_point
-
-        T = ec.num_transcripts
-        eff = effective_lengths(jnp.asarray(lengths), cfg, jnp.float32)
-        inv_eff = (1.0 / eff)[None, :]
-        N = ec.counts.sum()
-        alpha0 = (jnp.full((1, T), N / T, jnp.float32)
-                  if alpha_init is None
-                  else jnp.asarray(alpha_init, jnp.float32)[None, :])
-        alpha, iters = em_fixed_point(
-            dense_membership(ec), ec.counts.astype(jnp.float32)[None, :],
-            inv_eff, alpha0, cfg, T, interpret=_pallas_interpret(),
-        )
-        return alpha[0], iters
-    if chunked is None:
-        chunked = _use_chunked(int(ec.ec_ids.shape[0]), cfg)
-    if chunked:
+    if use_chunked(chunked, snapshots=on_sync is not None):
         return _run_em_chunked(ec, lengths, cfg, alpha_init=alpha_init,
                                it_init=it_init, on_sync=on_sync)
     return _run_em_jit(

@@ -1,6 +1,6 @@
 """Fusion-transcript candidate detection from discordant read pairs.
 
-TPU-native analog of the reference's fusion mode (seekmer fusion.py,
+Device-side analog of the reference's fusion mode (seekmer fusion.py,
 SURVEY.md 2.1 C12 — split-read fusion calling; existence tagged [K-low]
 there and out of BASELINE benchmark scope, implemented here for component
 completeness): a read pair whose mates pseudoalign to DISJOINT transcript

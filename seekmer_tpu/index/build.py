@@ -116,8 +116,8 @@ def group_equivalence_classes(
         # hot loop #1 (SURVEY.md 3.1): the threaded C radix core sorts
         # byte-identically to the stable argsort + gathers (+ rank
         # scatter) and measured 7.1 s vs numpy's 37.8 s at GENCODE's
-        # 62M pairs on this host (docs/PERFORMANCE.md "GENCODE index
-        # build"). Falls through to numpy when the library is missing.
+        # 62M pairs on the earlier 2-CPU build host. Falls through to
+        # numpy when the library is missing.
         from ..native.packer import sort_pairs_native
 
         sorted_native = sort_pairs_native(keys, tids,

@@ -2,7 +2,7 @@
 KMerIndex load/save, SURVEY.md 2.1 C2; checkpointing note SURVEY.md 5.4 — the
 index file is the pipeline's primary checkpoint artifact).
 
-TPU-first layout: the index is a set of flat arrays ready for device_put —
+Device-ready layout: the index is a set of flat arrays ready for device_put —
 an open-addressing main table, a small stash table for probe-overflow keys,
 and CSR equivalence-class membership. Table rows are int32[4] =
 [key_hi, key_lo, ec_id, pad] so one device gather fetches a 16-byte row.

@@ -308,7 +308,7 @@ def _bucketer_batches(chunk_iter, cfg: MapConfig, paired: bool
     """Drain decoded chunks through the C bucketer (native.packer.Bucketer):
     bucket placement runs in GIL-released C, removing the numpy bucket-copy
     that capped the full ingest pipeline at ~1.3M reads/s against a 3.5M
-    reads/s raw decode (docs/PERFORMANCE.md "Host ingest")."""
+    reads/s raw decode (benchmarks/micro_ingest.py, earlier build host)."""
     from ..native.packer import Bucketer
 
     B = cfg.batch_size
@@ -620,8 +620,7 @@ class CheckpointableBatchSource:
         """C decode + C bucket placement with the same cursor contract as
         the Python path: every ctypes call releases the GIL, so the
         checkpointable (serial) production path runs at the decoder's
-        rate instead of the numpy bucket-copy's (docs/PERFORMANCE.md
-        "Host ingest")."""
+        rate instead of the numpy bucket-copy's (benchmarks/micro_ingest.py)."""
         from ..native.packer import Bucketer
 
         cfg = self.cfg

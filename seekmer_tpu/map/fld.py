@@ -6,7 +6,7 @@ parameter; kallisto-class tools estimate it from concordantly mapped
 pairs). Round 1 required the user to guess ``--fragment-length``; this
 module estimates it from the data.
 
-TPU-first design: pseudoalignment keeps no positional information, so the
+Design: pseudoalignment keeps no positional information, so the
 index carries a per-slot payload (``KMerIndex.fld_tid`` / ``fld_pos``,
 index/build.py) giving, for every GLOBALLY UNIQUE k-mer (one occurrence in
 the whole transcriptome), its transcript id and transcript-local window

@@ -39,9 +39,8 @@ SIG_PAD = jnp.int32(0x7FFFFFFF)
 
 
 # Slots per key bucket: one probe round gathers a whole 8-slot (64B) key
-# bucket, so chains that previously took up to 8 while_loop rounds resolve
-# in one — the steady-state accumulate cost is round-dominated, ~1 ms per
-# round (benchmarks/micro_acc.py).
+# bucket, so chains that would take up to 8 while_loop rounds resolve in
+# one — the steady-state accumulate cost is round-dominated.
 KB = 8
 
 

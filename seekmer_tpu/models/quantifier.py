@@ -1,6 +1,6 @@
 """Quantifier: the end-to-end pipeline object (the framework's flagship
 "model": index -> pseudoalignment -> EM -> abundance table). Mirrors the
-reference's `seekmer infer` call stack (SURVEY.md 3.2) with the TPU device
+reference's `seekmer infer` call stack (SURVEY.md 3.2) with the device
 boundary described there: host ingest -> device map kernel -> device EM.
 """
 
@@ -409,6 +409,10 @@ class Quantifier:
             self._em_snapshots(checkpoint_path, T)
 
         mesh = getattr(self, "_mesh", None)
+        # checkpointed runs execute EM chunked so its host syncs can write
+        # snapshots; decided from --checkpoint, which every host has, not
+        # from on_sync, which only process 0 gets (em.use_chunked)
+        snapshots = em_snap is not None
         t0 = time.perf_counter()
         metrics = getattr(self, "_metrics", None)
         with (metrics.timer("em") if metrics is not None
@@ -426,11 +430,13 @@ class Quantifier:
                                                  self.cfg.shard,
                                                  alpha_init=alpha_init,
                                                  it_init=it_init,
-                                                 on_sync=on_sync)
+                                                 on_sync=on_sync,
+                                                 chunked=snapshots)
             else:
                 alpha, iters = run_em(ec, lengths, em_cfg,
                                       alpha_init=alpha_init,
-                                      it_init=it_init, on_sync=on_sync)
+                                      it_init=it_init, on_sync=on_sync,
+                                      chunked=snapshots)
             tpm = tpm_from_alpha(alpha, lengths, em_cfg)
             from ..em.em import log_likelihood
 
@@ -505,10 +511,12 @@ class Quantifier:
                     em_bootstrap.run_bootstrap(ec, lengths, em_cfg,
                                                alpha_init=b_init,
                                                it_init=b_it,
-                                               on_sync=b_sync)
+                                               on_sync=b_sync,
+                                               chunked=snapshots)
                 )
+            t_boot = time.perf_counter() - t0
             log.info("bootstrap: %d replicates in %.2fs",
-                     em_cfg.bootstrap_samples, time.perf_counter() - t0)
+                     em_cfg.bootstrap_samples, t_boot)
         if on_sync is not None:
             # run complete: drop stage snapshots so the next fresh run
             # does not warm-start from stale state
@@ -519,6 +527,8 @@ class Quantifier:
                     os.remove(p)
 
         timings = {"map_s": t_map, "resolve_s": t_resolve, "em_s": t_em}
+        if boot is not None:
+            timings["bootstrap_s"] = t_boot
         if metrics is not None:
             # BASELINE metric names (reads_per_s, em_iterations_per_s,
             # wall_s) from the per-run registry; surfaces in run_info.json

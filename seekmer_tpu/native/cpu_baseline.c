@@ -127,7 +127,7 @@ long seekmer_cpu_map(void *h, const uint8_t *codes, long B, long L,
         /* the reference's contig-match-length skipping (SURVEY.md 3.3):
          * the last hit's run length proves the next `aux` windows share
          * its EC in every indexed context, so probing them cannot change
-         * the signature set (caveat identical to the strided-exact TPU
+         * the signature set (caveat identical to the strided-exact device
          * mode: a sequencing-error window inside the run that would have
          * COLLIDED with a different indexed k-mer, ~1e-7/window). The
          * rolling update above still runs — only the probe is saved. */

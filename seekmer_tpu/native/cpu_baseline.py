@@ -117,7 +117,7 @@ class CpuBaselineMapper:
         ``use_skip`` enables the reference's skipping heuristic
         (SURVEY.md 3.3: jump by the hit's EC run length) — same
         signature sets up to the ~1e-7/window error-collision caveat of
-        the strided-exact TPU mode; probes saved scale with run length."""
+        the strided-exact device mode; probes saved scale with run length."""
         codes = np.ascontiguousarray(codes, dtype=np.uint8)
         B, L = codes.shape
         n = self._lib.seekmer_cpu_map(

@@ -1,7 +1,7 @@
 /* FASTQ -> 2-bit-code batch packer (native host ingest).
  *
  * Reference parity: the reference's only native component is its Cython
- * mapper inner loop (SURVEY.md 2.1 C4); its FASTQ reader is Python. On TPU
+ * mapper inner loop (SURVEY.md 2.1 C4); its FASTQ reader is Python. Here
  * the mapper lives on-device, so the host-side bottleneck moves to ingest:
  * this translation unit parses FASTQ text and emits code rows (A=0 C=1 G=2
  * T=3, other=4) directly into the caller's pinned batch buffer, one memcpy
@@ -191,7 +191,7 @@ void seekmer_close(void *h) {
  * copy into fixed (B, W) batch buffers) was the measured ceiling of the
  * full ingest pipeline: the numpy version ran on ONE GIL-holding thread at
  * ~1.3M reads/s while the threaded C decode fed 1.7-3.5M
- * (docs/PERFORMANCE.md "Host ingest"). This moves the copy into C so every
+ * (benchmarks/micro_ingest.py). This moves the copy into C so every
  * ctypes call in the ingest loop releases the GIL.
  *
  * Rows fed here are decoder output: uint8[n, max_len], INVALID(4)-padded.

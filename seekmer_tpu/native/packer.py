@@ -215,8 +215,8 @@ class Bucketer:
     """C-side bucket placement: feed decoded (codes, lengths) chunks, pop
     fixed-shape (B, W) batches as buckets fill — the consumer half of the
     ingest pipeline, GIL-released end-to-end (the numpy bucket-copy was the
-    measured ~1.3M reads/s pipeline ceiling; docs/PERFORMANCE.md "Host
-    ingest"). Matches io/fastq._BucketAccumulator semantics exactly,
+    measured ~1.3M reads/s pipeline ceiling; benchmarks/micro_ingest.py).
+    Matches io/fastq._BucketAccumulator semantics exactly,
     including checkpoint pending-buffer export (``pending_state``)."""
 
     def __init__(self, batch_size: int, max_len: int, length_bucket: int,

@@ -2,7 +2,7 @@
 
 The open-addressing k-mer table (reference: seekmer common.py hash index,
 SURVEY.md 2.1 C2) is slot-addressed by ``hash_kmer(hi, lo) & mask``. The same
-functions run under numpy (index build, oracle) and under jit on TPU
+functions run under numpy (index build, oracle) and under jit on the device
 (lookup), so constants live here once. All arithmetic is uint32 with
 wrap-around semantics; callers pass uint32 arrays (numpy or jax).
 """

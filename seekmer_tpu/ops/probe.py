@@ -1,15 +1,13 @@
 """Loop-free bucketized k-mer lookup on device.
 
 Replaces the reference mapper's per-k-mer hash-probe walk (SURVEY.md call
-stack 3.3) with a design driven by the measured TPU cost model
-(benchmarks/micro_gather.py): gathers AND scatters cost per-LANE,
-independent of row width (one HBM transaction per lane either way). Hence:
+stack 3.3) with static dataflow:
 
   * the index guarantees every key lives in its home bucket of the main
     table OR its home bucket of the stash (index/build.py), so a lookup is
     ONE wide bucket gather + vectorized compare;
-  * buckets are large (32 slots = 512B row) so a FULL home bucket — the
-    only case that must consult the stash — is vanishingly rare;
+  * buckets are large (32 slots) so a FULL home bucket — the only case
+    that must consult the stash — is vanishingly rare;
   * the rare stash lanes are BLOCK-compacted: per-32-lane-block need flags
     (N/32 of them) drive the compaction instead of per-lane scatters, so
     the second gather costs O(needy blocks), not O(N).
@@ -34,8 +32,8 @@ _BLK = 32  # block-compaction granularity (lanes)
 
 # ec and aux (EC run length, <= 127) share one int32 lane in the device
 # layout: ecaux = ec << AUX_BITS | aux, -1 for empty slots. One select+max
-# pass then recovers both — each extra (N, bucket)-shaped pass over the
-# gathered rows measured ~7 ms per 5M lanes (docs/PERFORMANCE.md).
+# pass then recovers both, instead of one (N, bucket)-shaped pass over
+# the gathered rows per field.
 AUX_BITS = 7
 AUX_MASK = (1 << AUX_BITS) - 1
 MAX_EC_ID = (1 << (31 - AUX_BITS)) - 1  # 16.7M ECs (GENCODE needs ~1M)
@@ -44,20 +42,14 @@ MAX_EC_ID = (1 << (31 - AUX_BITS)) - 1  # 16.7M ECs (GENCODE needs ~1M)
 def device_table_layout(table, bucket: int):
     """Host (S, 4) rows [hi, lo, ec, aux] -> at-rest device layout
     (n_buckets, 4*bucket): struct-of-arrays slabs
-    ``[hi x G | lo x G | ecaux x G | meta x G]`` per 128-int32 row (bucket
-    G=32 -> exactly one TPU tile line).
+    ``[hi x G | lo x G | ecaux x G | meta x G]`` per bucket row.
 
-    Why slabs, measured (docs/PERFORMANCE.md): interleaved (hi,lo,ec,aux)
-    quads make every field access a stride-4 cross-lane shuffle of the
-    gathered row (52.5 ms probe); contiguous slabs compare directly
-    (~2.6x less vector work). The meta slab broadcasts the per-bucket FULL
-    flag; the XLA lookup no longer reads it (a single-lane slice compiles
-    to a second narrow gather, +11 ms per 5M lanes — fullness now rides
-    the match reduce's 3-state encoding, see _bucket_lookup), but the slab
-    stays: the Pallas kernel form uses it, and 128-int32 rows are the tile
-    line. Keeping (S, 4) on device at all makes XLA tile-pad the minor
-    dim 4 -> 128 (a 32x memory blow-up: a GENCODE table copy requested
-    32GB)."""
+    Contiguous slabs let the compare read each field directly instead of
+    de-interleaving (hi, lo, ec, aux) quads from the gathered row. The
+    meta slab broadcasts the per-bucket FULL flag; the lookup does not
+    read it (fullness rides the match reduce's 3-state encoding, see
+    _bucket_lookup), so it is dead bytes kept until the row layout is
+    re-measured on the GPU."""
     S = table.shape[0]
     rows = np.asarray(table).reshape(S // bucket, bucket, 4)
     hi, lo, ec, aux = (rows[:, :, i] for i in range(4))
@@ -97,9 +89,8 @@ def _bucket_lookup(hi, lo, table, slots: int, bucket: int, hash_fn):
     #   occupied slot -> -2
     # max >= 0 = found; max == -2 = no match AND no empty slot = the home
     # bucket is full, consult the stash. Reading the broadcast meta lane
-    # instead measured +11 ms per 5M lanes: the single-lane slice becomes a
-    # second narrow gather, while this encoding rides the reduce already
-    # being done (benchmarks/micro_stash.py).
+    # instead would add a second, narrow gather; this encoding rides the
+    # reduce already being done.
     lane_val = jnp.where(
         match, rows[:, 2 * G:3 * G],
         jnp.where(hi_slab == EMPTY, MISS, jnp.int32(-2)))
@@ -123,13 +114,10 @@ def block_compact(blk_need, max_blocks: int):
     cap — the caller loops on them, so the cap bounds per-round cost
     without capping coverage).
 
-    Everything here is NB-shaped: the measured cost of the old per-lane
-    formulation was ~3 full passes over the N lanes (block-any, block-sum
-    for a lost counter nobody consumed, and a repeat+mask residual
-    reconstruction) — ~14 ms per 5M-lane batch, the entire gap between the
-    bare bucket lookup and the full probe (benchmarks/micro_stash.py).
-    Callers compute blk_need with ONE N-pass and carry residual state at
-    block granularity.
+    Everything here is NB-shaped: a per-lane formulation costs ~3 full
+    passes over the N lanes (block-any, block-sum, and a repeat+mask
+    residual reconstruction). Callers compute blk_need with ONE N-pass
+    and carry residual state at block granularity.
     """
     NB = blk_need.shape[0]
     N = NB * _BLK
@@ -155,7 +143,7 @@ def _pad_to_block(x, fill):
 
 def lookup_ecs_aux(
     hi, lo, valid, table, main_slots: int, stash, stash_slots: int,
-    bucket: int, chunks: int = 1, bucket_lookup=None,
+    bucket: int, chunks: int = 1,
 ):
     """Bucketized lookup returning (ec, aux) with aux = the per-k-mer EC
     run length written by the index builder. Any input lane shape.
@@ -181,8 +169,7 @@ def lookup_ecs_aux(
         def one(args):
             h, l, v = args
             return _lookup_flat(h, l, v, table, main_slots, stash,
-                                stash_slots, bucket,
-                                bucket_lookup=bucket_lookup)
+                                stash_slots, bucket)
 
         ec_c, aux_c = jax.lax.map(
             one, (padded(hi_f, 0), padded(lo_f, 0), padded(valid_f, False)))
@@ -190,21 +177,17 @@ def lookup_ecs_aux(
                 aux_c.reshape(-1)[:N].reshape(shape))
 
     ec, aux = _lookup_flat(hi_f, lo_f, valid_f, table, main_slots, stash,
-                           stash_slots, bucket, bucket_lookup=bucket_lookup)
+                           stash_slots, bucket)
     return ec.reshape(shape), aux.reshape(shape)
 
 
 def _lookup_flat(hi_f, lo_f, valid_f, table, main_slots: int, stash,
-                 stash_slots: int, bucket: int, bucket_lookup=None):
+                 stash_slots: int, bucket: int):
     """Full lookup over flat lanes: home-bucket match + rare compacted
-    stash pass. ``bucket_lookup`` swaps the single-bucket match
-    implementation (default: the XLA gather+compare `_bucket_lookup`;
-    ops/probe_pallas.py passes its fused Pallas kernel)."""
-    if bucket_lookup is None:
-        bucket_lookup = _bucket_lookup
+    stash pass."""
     N = hi_f.shape[0]
-    ec, aux, found, full = bucket_lookup(hi_f, lo_f, table, main_slots,
-                                         bucket, hash_kmer)
+    ec, aux, found, full = _bucket_lookup(hi_f, lo_f, table, main_slots,
+                                          bucket, hash_kmer)
     hit = valid_f & found
     ec = jnp.where(hit, ec, MISS)
     aux = jnp.where(hit, aux, 0)
@@ -230,7 +213,7 @@ def _lookup_flat(hi_f, lo_f, valid_f, table, main_slots: int, stash,
         c_hi = hi_f[li]
         c_lo = lo_f[li]
         c_need = need0[jnp.minimum(lane_idx, Np - 1)] & (lane_idx < N)
-        ec2, aux2, found2, _ = bucket_lookup(
+        ec2, aux2, found2, _ = _bucket_lookup(
             c_hi, c_lo, stash, stash_slots, bucket, hash_kmer_stash)
         write = c_need & found2
         dst = jnp.where(write, lane_idx, N)  # N is out of bounds -> dropped
@@ -246,29 +229,27 @@ def _lookup_flat(hi_f, lo_f, valid_f, table, main_slots: int, stash,
 
 def lookup_ecs(
     hi, lo, valid, table, main_slots: int, stash, stash_slots: int,
-    bucket: int, chunks: int = 1, bucket_lookup=None,
+    bucket: int, chunks: int = 1,
 ):
     """k-mer (hi, lo) lanes -> EC ids (MISS = -1 for absent/invalid)."""
     ec, _ = lookup_ecs_aux(hi, lo, valid, table, main_slots, stash,
-                           stash_slots, bucket, chunks=chunks,
-                           bucket_lookup=bucket_lookup)
+                           stash_slots, bucket, chunks=chunks)
     return ec
 
 
 def two_phase_signatures(
     hi, lo, valid, segments, pack_fn, table, main_slots: int, stash,
     stash_slots: int, bucket: int, stride: int, max_ecs: int, sig_fn,
-    sig_pad, chunks: int = 1, bucket_lookup=None,
+    sig_pad, chunks: int = 1,
     fallback_frac: float = 1.0 / 8, seg_widths=None,
     fallback_chunks: int = 1, _stage: str = "full",
     lookup_fn=None, residual_agree=None,
 ):
     """Two-phase early-exit probing — the opt-in fast mode
-    (MapConfig.probe_sample; round-4 verdict item 1a). Attacks the one
-    axis no dense optimization can: LANE COUNT. The wide bucket gather is
-    per-lane-cost-bound (docs/PERFORMANCE.md), so probing all P windows
-    of every read is the entire probe cost; most reads lie inside one
-    EC run and are determined by a few windows.
+    (MapConfig.probe_sample; round-4 verdict item 1a). Attacks LANE
+    COUNT: the probe's cost grows with the number of windows gathered,
+    while most reads lie inside one EC run and are determined by a few
+    windows.
 
     Phase 1 probes every ``stride``-th window (plus the last) of each
     SEGMENT (mate). Resolution is per segment: a read resolves when
@@ -291,9 +272,9 @@ def two_phase_signatures(
     --sample A/B): a resolved read's dense signature would contain MORE
     ECs only if a short EC run (< stride windows) lies strictly between
     two samples that agree — then the fast signature is a SUBSET of the
-    dense one. No run-length proofs are used (the measured strided dead
-    end, docs/PERFORMANCE.md); this trades that exactness for lane count
-    on the unambiguous majority.
+    dense one. No run-length proofs are used (the strided-exact mode,
+    lookup_ecs_strided, does that); this trades that exactness for lane
+    count on the unambiguous majority.
 
     Phase 2 runs as capped compacted rounds over (read, segment) UNITS
     with a residual while_loop, the same cost-bounding pattern as the
@@ -329,8 +310,7 @@ def two_phase_signatures(
     if lookup_fn is None:
         def lookup_fn(h, l, v, chunks=1):
             return lookup_ecs(h, l, v, table, main_slots, stash,
-                              stash_slots, bucket, chunks=chunks,
-                              bucket_lookup=bucket_lookup)
+                              stash_slots, bucket, chunks=chunks)
     s = max(stride, 2)
     if seg_widths is None:
         seg_widths = [P]
@@ -492,7 +472,7 @@ def two_phase_signatures(
 
 def lookup_ecs_strided(
     hi, lo, valid, table, main_slots: int, stash, stash_slots: int,
-    bucket: int, stride: int, chunks: int = 1, bucket_lookup=None,
+    bucket: int, stride: int, chunks: int = 1,
 ):
     """Strided lookup with exact gap coverage via EC run lengths.
 
@@ -510,8 +490,7 @@ def lookup_ecs_strided(
     """
     if stride <= 1:
         return lookup_ecs(hi, lo, valid, table, main_slots, stash,
-                          stash_slots, bucket, chunks=chunks,
-                          bucket_lookup=bucket_lookup)
+                          stash_slots, bucket, chunks=chunks)
     B, P = hi.shape
     s = stride
     Ps = -(-P // s)  # samples at 0, s, ..., (Ps-1)*s
@@ -521,8 +500,7 @@ def lookup_ecs_strided(
 
     hi_s, lo_s, valid_s = sample(hi), sample(lo), sample(valid)
     ec_s, d_s = lookup_ecs_aux(hi_s, lo_s, valid_s, table, main_slots,
-                               stash, stash_slots, bucket,
-                               bucket_lookup=bucket_lookup)
+                               stash, stash_slots, bucket)
 
     pos = jnp.arange(P, dtype=jnp.int32)
     gap = pos // s
@@ -574,7 +552,7 @@ def lookup_ecs_strided(
         c_hi, c_lo = hi_f[li], lo_f[li]
         c_need = need_f[jnp.minimum(lane_idx, Np - 1)] & (lane_idx < N)
         ec_d = lookup_ecs(c_hi, c_lo, c_need, table, main_slots, stash,
-                          stash_slots, bucket, bucket_lookup=bucket_lookup)
+                          stash_slots, bucket)
         dst = jnp.where(c_need, lane_idx, N)  # N out of bounds -> dropped
         return ec_flat.at[dst].set(ec_d, mode="drop"), residual_blocks
 

@@ -10,11 +10,9 @@ chips leave in lockstep at the same iteration count — which also makes the
 single-execution and chunked execution modes state-for-state identical and
 keeps the stage snapshot a plain (alpha[T, B], it) pair.
 
-Long runs execute CHUNKED (one blocked round per XLA execution, driven from
-the host): a GENCODE-scale convergence budget in one execution would exceed
-this platform's ~90 s TPU-worker crash limit (docs/PERFORMANCE.md), and the
-host sync points double as the bootstrap-stage snapshot hook (SURVEY.md 5.3
-— round-3 verdict closed the "no snapshot wiring" carve-out here).
+Checkpointed and resumed runs execute CHUNKED (blocked rounds driven from
+the host, em.em.use_chunked): the host sync points are the bootstrap-stage
+snapshot hook (SURVEY.md 5.3).
 """
 
 from __future__ import annotations
@@ -29,11 +27,11 @@ from ..em.bootstrap import _batched_iter, resample_counts
 from ..em.em import (
     ECTable,
     _chunked_fixed_point,
-    _use_chunked,
     accel_schedule,
     convergence_check,
     effective_lengths,
     squarem_cycle,
+    use_chunked,
 )
 
 
@@ -82,9 +80,9 @@ def run_bootstrap_sharded(
     must be True on EVERY process when any process wants snapshots: the
     hook allgathers the replicate-sharded alpha to the host, which is
     collective on multi-process meshes — only hosts with ``on_sync`` set
-    (process 0 in the quantifier) write. ``chunked`` overrides the
-    execution-mode policy (tests); resume always runs chunked (the
-    single-execution form has no sync points and restarts its budget).
+    (process 0 in the quantifier) write. It also selects the chunked mode
+    (em.em.use_chunked), as does a resume (the single-execution form has
+    no warm start); ``chunked`` forces a mode.
     """
     axis = shard_cfg.data_axis_name
     D = mesh.shape[axis]
@@ -103,10 +101,8 @@ def run_bootstrap_sharded(
                              E, T)
         return (lambda a: squarem_cycle(base, a)) if accel else base
 
-    if chunked is None:
-        chunked = (alpha_init is not None or it_init > 0
-                   or _use_chunked(int(ec.ec_ids.shape[0]), cfg,
-                                   replicates=B_local))
+    chunked = use_chunked(chunked, snapshots=snapshots,
+                          resume=alpha_init is not None or it_init > 0)
 
     if not chunked:
         def local(counts, ec_ids, txp_ids, lengths):

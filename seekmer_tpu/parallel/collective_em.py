@@ -4,7 +4,7 @@
 
 Sharding layout: the flat EC-membership arrays (the nnz axis of em.ECTable)
 are split evenly across chips; alpha, eff and the per-EC denominators stay
-replicated. Each iteration does two psums over ICI: the (E,) partial
+replicated. Each iteration does two psums: the (E,) partial
 denominators and the (T,) partial alpha updates. The convergence predicate
 is computed on the replicated alpha, so every chip exits in lockstep.
 
@@ -27,11 +27,11 @@ from ..em.em import (
     ECTable,
     _block_body,
     _chunked_fixed_point,
-    _use_chunked,
     accel_schedule,
     effective_lengths,
     run_blocked_fixed_point,
     squarem_cycle,
+    use_chunked,
 )
 
 log = logging.getLogger(__name__)
@@ -66,13 +66,12 @@ def run_em_collective(
     """EM to convergence with the membership axis sharded over the mesh's
     data axis. Returns (alpha float[T], iterations).
 
-    ``chunked`` = None picks automatically: runs whose worst-case device
-    time could hit this platform's ~90 s single-execution crash
-    (em.em._MAX_EXEC_S) are driven from the host as bounded per-block
-    shard_map executions — the same _chunked_fixed_point machinery as the
-    single-chip CSR EM, with identical state semantics (post-convergence
-    blocks are the identity). A GENCODE-scale pod EM to tolerance would
-    otherwise run one unbounded convergence-checked while_loop.
+    ``chunked`` = None follows em.em.use_chunked: a snapshot hook selects
+    host-driven per-block shard_map executions (the same
+    _chunked_fixed_point machinery as the single-device CSR EM, with
+    identical state semantics). Multi-process callers pass ``chunked``
+    explicitly, agreed across hosts: the hook lives on process 0 only, and
+    hosts running different modes would deadlock the collectives.
 
     ``alpha_init``/``it_init``/``on_sync(alpha_np, it)`` wire EM-stage
     snapshots (resume + mid-run saves on the chunked path; the
@@ -100,10 +99,7 @@ def run_em_collective(
 
         return one_iter
 
-    if chunked is None:
-        # per-device iteration time scales with the LOCAL nnz shard
-        chunked = _use_chunked(
-            int(ec.txp_ids.shape[0]) // max(n_shards, 1), cfg)
+    chunked = use_chunked(chunked, snapshots=on_sync is not None)
 
     # SQUAREM acceleration (em.em.squarem_cycle) applies to the psum'd
     # iterate unchanged: each chip computes the identical REPLICATED alpha
@@ -120,15 +116,12 @@ def run_em_collective(
 
     if not chunked:
         if on_sync is not None:
-            # contract narrowing a caller cannot see from the signature
-            # (round-3 review finding): the single-execution branch honors
-            # the warm start but fires no mid-run snapshot hooks — the
-            # whole run is one bounded XLA execution, short enough that a
-            # crash loses at most that execution
+            # contract narrowing a caller cannot see from the signature:
+            # a forced single execution honors the warm start but fires no
+            # mid-run snapshot hooks
             log.info(
-                "collective EM running as a single execution (below the "
-                "chunking threshold); mid-run snapshots (on_sync) will "
-                "not fire for this stage")
+                "collective EM running as a single execution; mid-run "
+                "snapshots (on_sync) will not fire for this stage")
 
         def em_collective(counts, ec_ids, txp_ids, lengths, a_init):
             eff = effective_lengths(lengths, cfg, dtype)

@@ -1,7 +1,7 @@
 """P1 — data-parallel mapping over the `reads` mesh axis (SURVEY.md 2.2).
 
 The reference's only parallelism is a single-host worker pool merging
-per-worker EC count dicts (mapper.py, SURVEY.md 2.1 C6). The TPU design
+per-worker EC count dicts (mapper.py, SURVEY.md 2.1 C6). The device design
 shards each global read batch over the mesh: every chip runs the full map
 step (pack -> probe -> signature) on its shard against a REPLICATED k-mer
 index and accumulates into its own device-resident signature table

@@ -1,8 +1,9 @@
 """Device-mesh construction and sharding helpers (SURVEY.md 2.2/2.3 — the
 reference has no distributed layer at all; its only parallelism is a
-single-host worker pool, so this subsystem is TPU-native by design:
-jax.sharding Mesh + NamedSharding + shard_map with XLA collectives over
-ICI/DCN, never hand-written transports).
+single-host worker pool, so this subsystem is device-native by design:
+jax.sharding Mesh + NamedSharding + shard_map with XLA collectives (NCCL
+on GPUs), never hand-written transports). Every device reaches every
+other at the same rate, so the mesh is a plain reshape of jax.devices().
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Batch-granular checkpoint/resume (SURVEY.md 5.3/5.4).
 
 The reference's only checkpoint is the index file itself (build once, reuse;
-a crashed run is simply re-run). For long TPU mapping runs we add:
+a crashed run is simply re-run). For long device mapping runs we add:
 
   * mapping checkpoints: the (possibly mesh-sharded) signature table + the
     read-stream resume cursor — per-file uncompressed byte offsets plus the

@@ -3,7 +3,7 @@
 No sequencing data ships with this machine and the reference mount is empty
 (SURVEY.md section 0), so tests and benchmarks generate their own fixtures:
 a random transcriptome and reads drawn from it with optional errors — the
-TPU-side analog of the reference's tiny FASTA/FASTQ test fixtures
+device-side analog of the reference's tiny FASTA/FASTQ test fixtures
 (SURVEY.md 2.1 C11, "CPU-runnable reference Seekmer test set").
 """
 

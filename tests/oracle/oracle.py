@@ -3,7 +3,7 @@
 This is the provisional golden reference mandated by SURVEY.md section 4
 item 1: the reference Seekmer source/outputs are unavailable (mount empty,
 SURVEY.md section 0), so the pipeline's semantics are pinned HERE in the
-simplest possible form (dicts, sets, float64) and the TPU device path must
+simplest possible form (dicts, sets, float64) and the device path must
 match it. If reference goldens become available, they replace this oracle's
 outputs in tests/golden/ (a one-file swap by design).
 

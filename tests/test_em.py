@@ -156,10 +156,10 @@ def test_squarem_same_fixed_point(rng):
     ]
     counts = rng.integers(1, 400, size=E).astype(np.float64)
     ec = build_ec_table(members, counts, T)
-    # rel_tol within the f32 floor (~1e-6/iter on TPU, docs/PERFORMANCE.md)
-    # so BOTH runs actually converge rather than hitting max_iters
-    plain = EMConfig(rel_tol=1e-5, max_iters=20000, backend="csr")
-    fast = EMConfig(rel_tol=1e-5, max_iters=20000, backend="csr",
+    # rel_tol above the f32 noise floor so BOTH runs actually converge
+    # rather than hitting max_iters
+    plain = EMConfig(rel_tol=1e-5, max_iters=20000)
+    fast = EMConfig(rel_tol=1e-5, max_iters=20000,
                     accel="squarem")
     a0, it0 = run_em(ec, lengths, plain)
     a1, it1 = run_em(ec, lengths, fast)
@@ -178,7 +178,7 @@ def test_squarem_matches_oracle(rng):
         for _ in range(E)
     ]
     counts = rng.integers(1, 200, size=E).astype(np.float64)
-    cfg = EMConfig(rel_tol=1e-6, max_iters=5000, backend="csr",
+    cfg = EMConfig(rel_tol=1e-6, max_iters=5000,
                    accel="squarem")
     o_alpha, o_it = oracle.run_em(members, counts, lengths, cfg)
     ec = build_ec_table(members, counts, T)
@@ -197,7 +197,7 @@ def test_squarem_bootstrap_mass(rng):
     ]
     counts = rng.integers(1, 100, size=E).astype(np.float64)
     ec = build_ec_table(members, counts, T)
-    cfg = EMConfig(bootstrap_samples=B, backend="csr", accel="squarem",
+    cfg = EMConfig(bootstrap_samples=B, accel="squarem",
                    max_iters=200)
     boot = np.asarray(bs.run_bootstrap(ec, lengths, cfg))
     assert boot.shape == (B, T)
@@ -205,9 +205,9 @@ def test_squarem_bootstrap_mass(rng):
 
 
 def test_chunked_fixed_point_matches_device_loop(rng):
-    """The host-driven chunked driver (used on TPU to bound single-XLA-
-    execution time) produces the same result and iteration count as the
-    in-device while_loop."""
+    """The host-driven chunked driver (the snapshot path of checkpointed
+    runs) produces the same result and iteration count as the in-device
+    while_loop."""
     from seekmer_tpu.em.em import _run_em_chunked
 
     T, E = 30, 60
@@ -220,7 +220,7 @@ def test_chunked_fixed_point_matches_device_loop(rng):
     counts = rng.integers(1, 300, size=E).astype(np.float64)
     ec = build_ec_table(members, counts, T)
     for accel in ("none", "squarem"):
-        cfg = EMConfig(rel_tol=1e-6, max_iters=3000, backend="csr",
+        cfg = EMConfig(rel_tol=1e-6, max_iters=3000,
                        accel=accel)
         a_dev, it_dev = run_em(ec, lengths, cfg)
         a_chk, it_chk = _run_em_chunked(ec, lengths, cfg)
@@ -250,7 +250,7 @@ def test_chunked_batched_matches_device_loop(rng):
     ec = build_ec_table(members, counts, T)
     cmat = jnp.asarray(
         rng.integers(1, 100, size=(B, ec.num_ecs)).astype(np.float32))
-    cfg = EMConfig(rel_tol=1e-5, max_iters=1000, backend="csr")
+    cfg = EMConfig(rel_tol=1e-5, max_iters=1000)
     a_dev, it_dev = _batched_em_jit(cmat, ec.ec_ids, ec.txp_ids,
                                     jnp.asarray(lengths), ec.num_ecs, T, cfg)
     a_chk, it_chk = _batched_em_chunked(cmat, ec.ec_ids, ec.txp_ids,
@@ -291,3 +291,100 @@ def test_log_likelihood_matches_oracle_and_improves():
     uniform = jnp.full((T,), N / T, jnp.float32)
     ll_uniform = float(log_likelihood(ec, uniform, eff))
     assert ll_dev >= ll_uniform
+
+
+def _random_system(rng, T, E, max_members=5):
+    lengths = rng.integers(250, 3000, size=T).astype(np.int32)
+    members = [
+        np.sort(rng.choice(T, size=int(rng.integers(1, max_members + 1)),
+                           replace=False)).astype(np.int32)
+        for _ in range(E)
+    ]
+    counts = rng.integers(1, 500, size=E).astype(np.float64)
+    return lengths, members, counts
+
+
+def _group_sums(members, T, alpha):
+    """Mass per set of transcripts with IDENTICAL EC membership: such
+    transcripts are EM-degenerate (any split among them is a fixed
+    point), so only their summed mass is pinned."""
+    sig_of_t = [tuple() for _ in range(T)]
+    for e, mem in enumerate(members):
+        for t in mem:
+            sig_of_t[t] = sig_of_t[t] + (e,)
+    groups = {}
+    for t, sig in enumerate(sig_of_t):
+        groups.setdefault(sig, []).append(t)
+    return np.stack([alpha[..., ts].sum(axis=-1) for ts in groups.values()],
+                    axis=-1)
+
+
+def test_run_em_warm_start(rng):
+    """A run started from a converged alpha stops at the first block
+    boundary at/after min_iters."""
+    T = 40
+    lengths, members, counts = _random_system(rng, T, 90)
+    cfg = EMConfig(rel_tol=1e-5, max_iters=5000)
+    ec = build_ec_table(members, counts, T)
+    alpha, _ = run_em(ec, lengths, cfg)
+    _, it2 = run_em(ec, lengths, cfg, alpha_init=np.asarray(alpha))
+    assert int(it2) <= cfg.min_iters + cfg.check_every
+
+
+@pytest.mark.parametrize("accel", ["none", "squarem"])
+def test_bootstrap_matches_oracle_per_replicate(accel):
+    """Batched bootstrap EM, per replicate, against the float64 oracle EM
+    run on that replicate's resampled counts."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(21)
+    T, B = 20, 4
+    lengths, members, counts = _random_system(rng, T, 45, max_members=3)
+    cfg = EMConfig(rel_tol=1e-5, max_iters=1000, bootstrap_samples=B,
+                   bootstrap_seed=3, accel=accel)
+    ec = build_ec_table(members, counts, T)
+    boot = np.asarray(bs.run_bootstrap(ec, lengths, cfg))
+    assert boot.shape == (B, T)
+    cmat = np.asarray(bs._resample_jit(jax.random.PRNGKey(3),
+                                       ec.counts.astype(jnp.float32), B))
+    o = np.stack([oracle.run_em(members, cmat[b].astype(np.float64),
+                                lengths, cfg)[0] for b in range(B)])
+    np.testing.assert_allclose(_group_sums(members, T, boot),
+                               _group_sums(members, T, o),
+                               rtol=5e-3, atol=5e-2)
+
+
+def test_batched_matches_single_runs(rng):
+    """The replicate-major batched EM is B independent EMs: with a fixed
+    iteration budget each replicate equals run_em on its own counts."""
+    import jax.numpy as jnp
+
+    from seekmer_tpu.em.bootstrap import _batched_em_jit
+
+    T, B = 30, 5
+    lengths, members, counts = _random_system(rng, T, 70)
+    ec = build_ec_table(members, counts, T)
+    cmat = rng.integers(1, 100, size=(B, ec.num_ecs)).astype(np.float32)
+    cfg = EMConfig(rel_tol=0.0, min_iters=96, max_iters=96)
+    boot, it = _batched_em_jit(jnp.asarray(cmat), ec.ec_ids, ec.txp_ids,
+                               jnp.asarray(lengths), ec.num_ecs, T, cfg)
+    assert int(it) == 96
+    for b in range(B):
+        alpha, it_b = run_em(build_ec_table(members, cmat[b], T), lengths,
+                             cfg)
+        assert int(it_b) == 96
+        np.testing.assert_allclose(np.asarray(boot)[b], np.asarray(alpha),
+                                   rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("chunked,snapshots,resume,expect", [
+    (None, False, False, False),  # plain run: one while_loop execution
+    (None, True, False, True),    # snapshot hook: chunked syncs
+    (None, False, True, True),    # resume of a chunked-only form
+    (False, True, True, False),   # forced single execution
+    (True, False, False, True),   # forced chunked
+])
+def test_chunking_policy(chunked, snapshots, resume, expect):
+    from seekmer_tpu.em.em import use_chunked
+
+    assert use_chunked(chunked, snapshots, resume) is expect

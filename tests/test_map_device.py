@@ -63,10 +63,37 @@ def test_pack_canonical_matches_host(rng):
         assert (lo[b, :P_host][ok] == l_host[ok]).all()
 
 
-def test_lookup_matches_dict(setup):
-    index, seqs, sim = setup
-    kdict = oracle.build_kmer_dict(index)
-    k = index.k
+def test_pack_canonical_known_sequence():
+    """A hand-written sequence with an N: windows over the N are invalid,
+    the rest match the host encoder's canonical keys."""
+    k = 5
+    seq = "ACGTTTGCA" + "N" + "ACGTA"
+    codes = enc.seq_to_codes(seq)[None, :]
+    lengths = np.array([len(seq)], np.int32)
+    hi, lo, v = pack_canonical(jnp.asarray(codes), jnp.asarray(lengths), k)
+    keys, valid = enc.canonical_kmers(enc.seq_to_codes(seq), k)
+    np.testing.assert_array_equal(np.asarray(v)[0], valid)
+    assert valid.sum() == 5 + 1 and not valid[5:10].any()
+    h_host, l_host = enc.split_key(keys, k)
+    np.testing.assert_array_equal(np.asarray(hi)[0][valid], h_host[valid])
+    np.testing.assert_array_equal(np.asarray(lo)[0][valid], l_host[valid])
+
+
+@pytest.fixture(scope="module")
+def bucket4_index():
+    """The setup world indexed with 4-slot buckets: full home buckets are
+    common, so the stash holds keys."""
+    rng = np.random.default_rng(99)
+    names, seqs = random_transcriptome(
+        rng, num_transcripts=40, min_len=150, max_len=800,
+        shared_prefix_frac=0.6,
+    )
+    index = build_index_from_seqs(names, seqs, cfg=IndexConfig(bucket_size=4))
+    assert (index.stash[:, 0] != -1).any(), "fixture needs stashed keys"
+    return index
+
+
+def _read_lanes(index, sim):
     reads = sim.reads1[:64]
     L = max(len(r) for r in reads)
     codes = np.full((len(reads), L), 4, np.uint8)
@@ -75,24 +102,87 @@ def test_lookup_matches_dict(setup):
         c = enc.seq_to_codes(r)
         codes[i, : c.size] = c
         lengths[i] = c.size
-    hi, lo, valid = pack_canonical(jnp.asarray(codes), jnp.asarray(lengths), k)
+    hi, lo, valid = pack_canonical(jnp.asarray(codes), jnp.asarray(lengths),
+                                   index.k)
+    return np.asarray(hi), np.asarray(lo), np.asarray(valid)
+
+
+def _table_lanes(rows, limit=2048):
+    occ = np.flatnonzero(rows[:, 0] != -1)[:limit]
+    return rows[occ, 0], rows[occ, 1], np.ones(occ.size, bool)
+
+
+@pytest.mark.parametrize("lanes", ["reads", "absent_and_invalid",
+                                   "stash_resident", "every_indexed"])
+def test_lookup_matches_dict(setup, bucket4_index, lanes):
+    """lookup_ecs == the oracle's k-mer dict, lane for lane: k-mers of
+    simulated reads; random keys (mostly absent) with random invalid
+    lanes; keys the builder placed in the stash; and keys of the main
+    table."""
+    index, seqs, sim = setup
+    rng = np.random.default_rng(7)
+    if lanes == "reads":
+        hi, lo, valid = _read_lanes(index, sim)
+    elif lanes == "absent_and_invalid":
+        n = 300
+        hi = rng.integers(0, 1 << 30, n, dtype=np.int32)
+        lo = rng.integers(0, 1 << 20, n, dtype=np.int32)
+        valid = rng.random(n) < 0.7
+        # a few real keys among the random ones, some of them invalid
+        khi, klo, _ = _table_lanes(index.table, 40)
+        hi[:40], lo[:40] = khi, klo
+    elif lanes == "stash_resident":
+        index = bucket4_index
+        hi, lo, valid = _table_lanes(index.stash)
+    else:
+        hi, lo, valid = _table_lanes(index.table)
     from seekmer_tpu.ops.probe import device_table_layout
 
     ecs = lookup_ecs(
-        hi, lo, valid,
+        jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(valid),
         jnp.asarray(device_table_layout(index.table, index.bucket)),
         index.main_slots,
         jnp.asarray(device_table_layout(index.stash, index.bucket)),
         index.stash_slots, index.bucket)
     ecs = np.asarray(ecs)
-    valid = np.asarray(valid)
-    for i, r in enumerate(reads):
-        keys, v = enc.canonical_kmers(enc.seq_to_codes(r), k)
-        for p in range(keys.size):
-            if not v[p]:
-                continue
-            expect = kdict.get(int(keys[p]), -1)
-            assert ecs[i, p] == expect, (i, p)
+    kdict = oracle.build_kmer_dict(index)
+    keys = enc.join_key(hi.reshape(-1), lo.reshape(-1), index.k)
+    expect = np.array([kdict.get(int(key), -1) for key in keys.tolist()],
+                      np.int32).reshape(hi.shape)
+    expect = np.where(valid, expect, -1)
+    np.testing.assert_array_equal(ecs, expect)
+    if lanes != "absent_and_invalid":
+        assert (ecs[valid] >= 0).any()
+
+
+def test_synthetic_stash_hit():
+    """Hand-built tables: a key whose main home bucket is full and that
+    lives only in the stash resolves through the stash pass, with its
+    aux lane; an absent key misses."""
+    from seekmer_tpu.ops.hash import hash_kmer, hash_kmer_stash
+    from seekmer_tpu.ops.probe import device_table_layout, lookup_ecs_aux
+
+    bucket, nb, nb_s = 4, 8, 4
+    main = np.full((nb * bucket, 4), -1, np.int32)
+    stash = np.full((nb_s * bucket, 4), -1, np.int32)
+    key = (np.int32(12345), np.int32(678))
+    hb = int(hash_kmer(np.uint32(key[0]), np.uint32(key[1])) & (nb - 1))
+    # fill the key's main home bucket with decoys sharing no key
+    for s in range(bucket):
+        main[hb * bucket + s] = (1000 + s, 2000 + s, 7 + s, 0)
+    sb = int(hash_kmer_stash(np.uint32(key[0]), np.uint32(key[1]))
+             & (nb_s - 1))
+    stash[sb * bucket + 1] = (key[0], key[1], 42, 3)
+
+    hi = jnp.asarray([key[0], 999999], jnp.int32)
+    lo = jnp.asarray([key[1], 999999], jnp.int32)
+    ec, aux = lookup_ecs_aux(
+        hi, lo, jnp.ones(2, bool),
+        jnp.asarray(device_table_layout(main, bucket)), nb * bucket,
+        jnp.asarray(device_table_layout(stash, bucket)), nb_s * bucket,
+        bucket)
+    assert np.asarray(ec).tolist() == [42, -1]
+    assert np.asarray(aux).tolist() == [3, 0]
 
 
 def test_read_signatures_basic():
@@ -115,6 +205,53 @@ def test_read_signatures_basic():
     assert mapped.tolist() == [True, False, True, False]
     assert sig[0].tolist() == [1, 3, int(SIG_PAD)]
     assert sig[2].tolist() == [5, int(SIG_PAD), int(SIG_PAD)]
+
+
+def _signatures_reference(ecs, valid, C):
+    """numpy reference of read_signatures: sorted distinct valid hits;
+    mapped iff 1..C of them."""
+    sig = np.full((ecs.shape[0], C), int(SIG_PAD), np.int32)
+    mapped = np.zeros(ecs.shape[0], bool)
+    for b in range(ecs.shape[0]):
+        d = np.unique(ecs[b][valid[b] & (ecs[b] >= 0)])
+        mapped[b] = 0 < d.size <= C
+        sig[b, :min(d.size, C)] = d[:C]
+    return sig, mapped
+
+
+@pytest.mark.parametrize("case", ["random_lanes", "no_hits_and_complex",
+                                  "wide_window_axis", "exactly_c_distinct"])
+def test_read_signatures_matches_numpy(case):
+    rng = np.random.default_rng(1234)
+    if case == "random_lanes":
+        B, P, C = 24, 76, 8
+        ecs = rng.integers(-1, 40, size=(B, P)).astype(np.int32)
+        valid = rng.random((B, P)) < 0.8
+    elif case == "no_hits_and_complex":
+        B, P, C = 16, 50, 4
+        ecs = rng.integers(0, 1000, size=(B, P)).astype(np.int32)
+        ecs[0] = -1                      # zero hits -> unmapped
+        ecs[1] = 7                       # single EC everywhere
+        valid = np.ones((B, P), bool)
+        valid[2] = False                 # all-invalid -> unmapped
+    elif case == "wide_window_axis":
+        B, P, C = 8, 200, 16
+        ecs = rng.integers(-1, 25, size=(B, P)).astype(np.int32)
+        valid = rng.random((B, P)) < 0.9
+    else:
+        B, P, C = 4, 30, 5
+        ecs = np.tile(np.arange(5, dtype=np.int32), (B, 6))
+        valid = np.ones((B, P), bool)
+    sig, mapped = read_signatures(jnp.asarray(ecs), jnp.asarray(valid), C)
+    ref_sig, ref_mapped = _signatures_reference(ecs, valid, C)
+    np.testing.assert_array_equal(np.asarray(mapped), ref_mapped)
+    np.testing.assert_array_equal(np.asarray(sig)[ref_mapped],
+                                  ref_sig[ref_mapped])
+    if case == "no_hits_and_complex":
+        assert ref_mapped[1] and not ref_mapped[0] and not ref_mapped[2]
+        assert not ref_mapped[3:].any()  # ~50 distinct ids > C
+    if case == "exactly_c_distinct":
+        assert ref_mapped.all()
 
 
 def test_accumulate_matches_counter(rng):
@@ -282,8 +419,6 @@ def test_sharded_mappers_reject_packed_batches(setup):
     from seekmer_tpu.io.fastq import pack_batch_2bit, ReadBatch
     from seekmer_tpu.parallel.data_parallel import DataParallelMapper
 
-    if len(jax.devices()) < 8:  # on-chip pass (SEEKMER_TEST_TPU=1): 1 chip
-        pytest.skip("needs the 8-device fake mesh")
     index, seqs, sim = setup
     cfg = MapConfig(batch_size=16, sig_table_bits=10)
     dp = DataParallelMapper(index, cfg, ShardConfig(data_axis=8))

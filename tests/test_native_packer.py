@@ -1,5 +1,5 @@
 """Native C FASTQ packer vs the pure-Python path (SURVEY.md 7.5 item 4:
-host ingest keeping chips fed; the one C component of the TPU build)."""
+host ingest keeping chips fed; the one C component of the build)."""
 
 import gzip
 
@@ -291,8 +291,7 @@ def test_empty_fastq(tmp_path):
 def test_checkpoint_source_native_equals_python(tmp_path, reads):
     """The C-bucketer CheckpointableBatchSource path must yield the same
     real rows per bucket as the pure-Python path (round-5: the consumer
-    bucket-copy moved into GIL-released C; docs/PERFORMANCE.md 'Host
-    ingest')."""
+    bucket-copy moved into GIL-released C)."""
     from seekmer_tpu.io.fastq import CheckpointableBatchSource
 
     rng = np.random.default_rng(11)

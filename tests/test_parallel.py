@@ -2,7 +2,6 @@
 8-fake-device CPU mesh exercises data-parallel mapping, collective EM with
 psum, and sharded bootstrap in ordinary pytest."""
 
-import jax
 import numpy as np
 import pytest
 
@@ -18,12 +17,6 @@ from seekmer_tpu.parallel.data_parallel import DataParallelMapper
 from seekmer_tpu.parallel.mesh import make_mesh
 from seekmer_tpu.utils.simulate import random_transcriptome, simulate_reads
 from tests.oracle import oracle
-
-# the on-chip pass (SEEKMER_TEST_TPU=1) runs on ONE real device; every
-# test here needs the 8-device fake mesh
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs the 8-device fake mesh")
-
 
 @pytest.fixture(scope="module")
 def world():
@@ -168,11 +161,10 @@ def test_sharded_bootstrap(world):
 
 
 def test_sharded_bootstrap_chunked_and_snapshot_resume(world):
-    """The chunked sharded bootstrap (required at scale: a GENCODE-size
-    convergence budget in ONE execution would hit this platform's ~90 s
-    TPU-worker crash) must be state-identical to the single-execution
-    form, and its snapshot hook must support exact kill-and-resume —
-    round-3 verdict item 4 closed the 'no snapshot wiring' carve-out."""
+    """The chunked sharded bootstrap (the snapshot path of checkpointed
+    runs) must be state-identical to the single-execution form, and its
+    snapshot hook must support exact kill-and-resume — round-3 verdict
+    item 4 closed the 'no snapshot wiring' carve-out."""
     index, sim = world
     cfg = MapConfig(batch_size=512, sig_table_bits=12)
     em_cfg = EMConfig(rel_tol=1e-8, check_every=8, max_iters=400,

@@ -146,10 +146,10 @@ def test_quantifier_fast_mode_abundances_match_dense(world):
     quantification from fast-mode mapping must agree with dense-mode
     quantification at the abundance level — total mass, mapped counts
     (within the documented complex-read nuance), and per-transcript
-    est_counts within the DOCUMENTED L1 budget (docs/PERFORMANCE.md
-    "Fast-mode abundance error": measured GENCODE-scale total-L1 0.9% at
-    stride 8, 1.9% at stride 16 — this guard pins the same 2% bound the
-    docs promise for strides <= 16)."""
+    est_counts within a 2% total-L1 budget (benchmarks/micro_fast_acc.py
+    measured GENCODE-scale total-L1 0.9% at stride 8 and 1.9% at stride
+    16 in an earlier round; this guard pins the 2% bound for strides
+    <= 16)."""
     names, seqs, index, sim = world
     em_cfg = EMConfig(rel_tol=1e-6, max_iters=2000)
     res = {}

@@ -2,14 +2,8 @@
 all_to_all routed mapping vs the single-chip mapper (SURVEY.md section 4
 item 4 — fake-device mesh exercises the routing collectives)."""
 
-import jax
 import numpy as np
 import pytest
-
-# the on-chip pass (SEEKMER_TEST_TPU=1) runs on ONE real device; the
-# mesh-matrix tests here need the 8-device fake mesh
-pytestmark = pytest.mark.skipif(
-    len(jax.devices()) < 8, reason="needs the 8-device fake mesh")
 
 from seekmer_tpu.config import MapConfig, ShardConfig
 from seekmer_tpu.index.build import build_index_from_seqs

@@ -1,6 +1,9 @@
 """Unit tests for the small auxiliary subsystems (SURVEY.md section 5):
-metrics registry, prefetch pipeline, profiling wrapper."""
+metrics registry, prefetch pipeline, profiling wrapper, compile cache."""
 
+import os
+import subprocess
+import sys
 import time
 
 import pytest
@@ -60,3 +63,26 @@ def test_trace_writes_profile(tmp_path):
         _ = np.asarray(jnp.arange(8) * 2)
     files = list(tmp_path.rglob("*"))
     assert files, "profiler produced no output"
+
+
+def _cache_dir_in_fresh_process(env_dir):
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    if env_dir is not None:
+        env["JAX_COMPILATION_CACHE_DIR"] = env_dir
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import jax, seekmer_tpu; "
+         "print(jax.config.jax_compilation_cache_dir)"],
+        env=env, cwd=repo, capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[-1], repo
+
+
+@pytest.mark.parametrize("env_dir", [None, "custom"])
+def test_compile_cache_placement(tmp_path, env_dir):
+    """JAX_COMPILATION_CACHE_DIR wins when set; otherwise the cache is the
+    fixed .jax_cache directory of the checkout, whatever HOME says."""
+    want = None if env_dir is None else str(tmp_path / env_dir)
+    got, repo = _cache_dir_in_fresh_process(want)
+    assert got == (want or os.path.join(repo, ".jax_cache"))

@@ -24,8 +24,7 @@ def test_x64_em_bit_parity(rng):
             for _ in range(E)
         ]
         counts = rng.integers(1, 300, size=E).astype(np.float64)
-        cfg = EMConfig(rel_tol=1e-8, max_iters=5000, use_x64=True,
-                       backend="csr")
+        cfg = EMConfig(rel_tol=1e-8, max_iters=5000, use_x64=True)
         ec = build_ec_table(members, counts, T, dtype=jnp.float64)
         alpha, it = run_em(ec, lengths, cfg)
         o_alpha, o_it = oracle.run_em(members, counts, lengths, cfg)
